@@ -8,9 +8,9 @@ GAT (Cora/Pubmed/Citeseer/Reddit, 4 heads, hidden 64), MoNet
 (Cora/Pubmed K=3, Reddit K=2, dim 2, hidden 64) and EdgeConv/DGCNN
 (ModelNet40, B=64, k=40, 1024 points).
 
-This suite runs the same configs on TPU (synthetic data at identical scales
-— no egress; Reddit is an R-MAT at Reddit's exact node/edge counts) with the
-same semantics per epoch (full fwd+bwd+optimizer; reference protocol
+This suite runs the same configs (synthetic data at identical scales;
+Reddit is an R-MAT at Reddit's exact node/edge counts) with the same
+semantics per epoch (full fwd+bwd+optimizer; reference protocol
 train_gatconv.py:125-161) measured device-resident (utils/timing.py).
 
 Prints ONE JSON line:
@@ -42,23 +42,6 @@ import numpy as np
 
 CACHE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          ".bench_cache")
-
-
-def _enable_compile_cache():
-    """Persistent XLA compilation cache under .bench_cache — subprocess
-    re-compiles of identical configs become disk hits, which is the
-    difference between the suite fitting the driver budget or timing out
-    (round-1 failure mode: rc=124 with compile walls of 300-900s/config)."""
-    import jax
-
-    d = os.path.join(CACHE_DIR, "xla_cache")
-    os.makedirs(d, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", d)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-
-
-_enable_compile_cache()
 
 # Per-config measurement wall cap (seconds) for time_epoch_loop doubling.
 MEASURE_WALL = float(os.environ.get("BENCH_MEASURE_WALL", "90"))
@@ -114,43 +97,22 @@ def _citation_graph(name, scale=1.0):
 def _citation_graph_uncached(name, scale=1.0):
     import jax.numpy as jnp
 
-    from dgnn_tpu.data.synthetic import CITATION_SHAPES, rmat_edges
-    from dgnn_tpu.data import load_citation_dataset
-    from dgnn_tpu.graph import cache as gcache
-    from dgnn_tpu.graph import structure
+    from dgnn.data.synthetic import CITATION_SHAPES
+    from dgnn.data import load_citation_dataset
+    from dgnn.graph import cache as gcache
+    from dgnn.graph import structure
 
     if name == "reddit":
         n_full, e_full, din, ncls = CITATION_SHAPES["reddit"]
         n, e = int(n_full * scale), int(e_full * scale)
-        os.makedirs(CACHE_DIR, exist_ok=True)
-        # cache key: binning/dense-format version (d6: merge-aware
-        # auto_widths + epos slot table; kept in round 5 -- the re-planned
-        # d7 decomposition measured strictly worse, see graph/hub.py)
-        path = os.path.join(CACHE_DIR, f"rmat_graph_{n}_{e}_d6.npz")
-        if os.path.exists(path):
-            g = gcache.load_graph(path)
-        else:
-            # two-level cache: the raw CSR/CSC/permute arrays are
-            # format-independent (a layout change only re-pays binning +
-            # dense planning, ~2 min, not the R-MAT + sorts)
-            raw = os.path.join(CACHE_DIR, f"rmat_raw_{n}_{e}.npz")
-            if not os.path.exists(raw):
-                sys.path.insert(0, os.path.join(
-                    os.path.dirname(os.path.abspath(__file__)), "scripts"))
-                from build_reddit_raw import build_raw
-                build_raw(n, e, raw)
-            z = np.load(raw)
-            g = structure.build_graph_from_csr(
-                z["row_ptr"], z["col_ind"], z["col_ptr"], z["row_ind"],
-                z["permute"], dense="auto", edge_tables=False)
-            gcache.save_graph(path, g)
+        g, _ = gcache.rmat_graph(n, e, CACHE_DIR, log=log)
         rng = np.random.default_rng(0)
         feat = jnp.asarray(rng.normal(size=(n, din)).astype(np.float32))
         labels = jnp.asarray(rng.integers(0, ncls, n).astype(np.int32))
         return g, feat, labels, ncls
     data = load_citation_dataset(name, seed=0)
     g = structure.build_graph(data.src, data.dst, data.num_nodes,
-                              dense="auto", edge_tables=False)
+                              edge_tables=False)
     return (g, jnp.asarray(data.features), jnp.asarray(data.labels),
             data.n_classes)
 
@@ -162,7 +124,7 @@ def _node_pseudo(graph):
     import jax
     import jax.numpy as jnp
 
-    from dgnn_tpu.ops.gmm import NodePseudo
+    from dgnn.ops.gmm import NodePseudo
 
     deg = jnp.maximum(graph.in_degrees().astype(jnp.float32), 1.0)
     rsq = jax.lax.rsqrt(deg)[:, None]
@@ -173,7 +135,7 @@ def _reddit_env():
     """Halve the gather chunk budget for reddit configs: the [W, chunk, C]
     gathered blocks are the dominant temporaries, and 128MB chunks cut the
     measured peak at ~no speed cost (more scan steps, same streaming)."""
-    os.environ.setdefault("DGNN_TPU_GATHER_BUDGET_MB", "128")
+    os.environ.setdefault("DGNN_GATHER_BUDGET_MB", "128")
 
 
 def bench_gat(dataset, scale, epochs, infer=False, heads=4,
@@ -184,15 +146,15 @@ def bench_gat(dataset, scale, epochs, infer=False, heads=4,
     import jax.numpy as jnp
     import optax
 
-    from dgnn_tpu.models import GAT
-    from dgnn_tpu.utils import time_epoch_loop
+    from dgnn.models import GAT
+    from dgnn.utils import time_epoch_loop
 
     graph, feat, labels, ncls = _citation_graph(dataset, scale)
     graph = graph.slim()  # bins only on device
     model = GAT(num_layers=1, n_hidden=64, n_classes=ncls, heads=(heads, 1),
                 feat_drop=0.5, attn_drop=0.0, gather_dtype=gather_dtype)
     key = jax.random.PRNGKey(0)
-    params = jax.jit(model.init)(key, graph, feat)
+    params = model.init(key, feat.shape[1])
     tx = optax.chain(optax.add_decayed_weights(5e-4), optax.adam(1e-3))
     opt_state = tx.init(params)
 
@@ -212,8 +174,7 @@ def bench_gat(dataset, scale, epochs, infer=False, heads=4,
         params, opt_state, _ = carry
 
         def loss_fn(p):
-            logits = model.apply(p, graph, feat, training=True,
-                                 rngs={"dropout": sub})
+            logits = model.apply(p, graph, feat, training=True, key=sub)
             return optax.softmax_cross_entropy_with_integer_labels(
                 logits, labels).mean()
 
@@ -235,8 +196,8 @@ def bench_gmm(dataset, scale, epochs, n_kernels, infer=False,
     import jax.numpy as jnp
     import optax
 
-    from dgnn_tpu.models import MoNet
-    from dgnn_tpu.utils import time_epoch_loop
+    from dgnn.models import MoNet
+    from dgnn.utils import time_epoch_loop
 
     graph, feat, labels, ncls = _citation_graph(dataset, scale)
     pseudo = _node_pseudo(graph)
@@ -246,7 +207,7 @@ def bench_gmm(dataset, scale, epochs, n_kernels, infer=False,
                   n_kernels=n_kernels, dropout=0.5,
                   gather_dtype=gather_dtype)
     key = jax.random.PRNGKey(0)
-    params = jax.jit(model.init)(key, graph, feat, pseudo)
+    params = model.init(key, feat.shape[1], pseudo)
     tx = optax.adam(1e-2)
     opt_state = tx.init(params)
 
@@ -267,7 +228,7 @@ def bench_gmm(dataset, scale, epochs, n_kernels, infer=False,
 
         def loss_fn(p):
             logits = model.apply(p, graph, feat, pseudo, training=True,
-                                 rngs={"dropout": sub})
+                                 key=sub)
             return optax.softmax_cross_entropy_with_integer_labels(
                 logits, labels).mean()
 
@@ -288,9 +249,9 @@ def bench_edgeconv(infer=False):
     import jax.numpy as jnp
     import optax
 
-    from dgnn_tpu.data import load_modelnet
-    from dgnn_tpu.models import DGCNN
-    from dgnn_tpu.utils import time_epoch_loop
+    from dgnn.data import load_modelnet
+    from dgnn.models import DGCNN
+    from dgnn.utils import time_epoch_loop
 
     bs, k, pts = 64, 40, 1024
     xtr, ytr, xte, yte = load_modelnet(num_points=pts, train_samples=9840,
@@ -300,8 +261,7 @@ def bench_edgeconv(infer=False):
     ncls = int(max(ytr.max(), yte.max())) + 1
     model = DGCNN(k=k, output_classes=ncls, dropout=0.5)
     key = jax.random.PRNGKey(0)
-    variables = model.init(key, jnp.asarray(xtr[:bs]))
-    params, batch_stats = variables["params"], variables["batch_stats"]
+    params, batch_stats = model.init(key)
 
     if infer:
         xd = jnp.asarray(xte[: n_eval * bs]).reshape(n_eval, bs, pts, 3)
@@ -310,9 +270,7 @@ def bench_edgeconv(infer=False):
         def infer_epoch(c, _k, cs):
             def body(cc, batch):
                 x, y = batch
-                logits = model.apply(
-                    {"params": params, "batch_stats": batch_stats},
-                    x + cc * 1e-30)
+                logits, _ = model.apply(params, batch_stats, x + cc * 1e-30)
                 return cc + jnp.sum(jnp.argmax(logits, 1) == y), None
 
             total, _ = jax.lax.scan(body, c * 1e-30, cs)
@@ -348,14 +306,12 @@ def bench_edgeconv(infer=False):
             kk, sub = jax.random.split(kk)
 
             def loss_fn(p):
-                logits, upd = model.apply(
-                    {"params": p, "batch_stats": batch_stats}, x,
-                    training=True, rngs={"dropout": sub},
-                    mutable=["batch_stats"])
+                logits, new_stats = model.apply(p, batch_stats, x,
+                                                training=True, key=sub)
                 oh = jax.nn.one_hot(y, ncls)
                 sm = oh * 0.8 + (1 - oh) * 0.2 / (ncls - 1)
                 loss = -(sm * jax.nn.log_softmax(logits, 1)).sum(1).mean()
-                return loss, upd["batch_stats"]
+                return loss, new_stats
 
             (loss, batch_stats), grads = jax.value_and_grad(
                 loss_fn, has_aux=True)(params)
@@ -374,8 +330,9 @@ def bench_edgeconv(infer=False):
     return dt
 
 
-# Config groups: one subprocess per GROUP (isolation against OOM poisoning)
-# but grouped configs share one process — per-dataset groups share one graph
+# Config groups: one subprocess per GROUP, run one at a time (isolation
+# against OOM poisoning; one process per card) but grouped configs share
+# one process — per-dataset groups share one graph
 # build/memoized load (the reddit groups share one ~3 GB cache load), the
 # two edgeconv ones share data gen.  Cheap configs run first so a
 # wall-budget cutoff loses the least signal.
@@ -395,13 +352,10 @@ GROUPS = [
 
 
 def _runners(scale, epochs):
-    # Gather dtype by TABLE SIZE (round-5 paired measurements): bf16 on the
-    # small graphs measured SLOWER through the bin kernels (the scratch
-    # conversion pass eats the bandwidth win; gmm_pubmed_train 0.59x bf16
-    # vs 1.69x f32 — their ~20MB tables already gather at the fast
-    # small-table rate), but at REDDIT scale the f32 tables are 242MB and
-    # bf16 measured strictly faster paired (infer 0.228 -> 0.196 s, train
-    # 0.485 -> 0.470 s) plus the peak-memory win.
+    # Gather dtype by table size: bf16 gathered rows for the Reddit-scale
+    # graphs (their f32 gather tables are ~242 MB and halving them also
+    # lowers peak memory), f32 on the small graphs.  Re-tuning on the card
+    # is open (ROADMAP).
     bf16 = "bfloat16"
     return {
         "gat_cora_train": lambda: bench_gat("cora", 1.0, epochs * 10),
@@ -446,10 +400,8 @@ def _run_child(names, runners):
     for name in names:
         try:
             dt = runners[name]()
-            from dgnn_tpu.utils import timing
-            peak_mb = round(timing.device_peak_memory_mb(), 1)
-            if peak_mb < 0:  # backend exposes no runtime stats: use the
-                peak_mb = timing.LAST_MEMORY_MB["value"]  # static analysis
+            from dgnn.utils import device_peak_memory_mb
+            peak_mb = round(device_peak_memory_mb(), 1)
             print(json.dumps({"_config": name, "_seconds": dt,
                               "_peak_mb": peak_mb}), flush=True)
         except Exception as ex:
@@ -492,6 +444,10 @@ def main():
 
     runners = _runners(scale, epochs)
     if os.environ.get("BENCH_CHILD") == "1":
+        # only the child touches JAX: the parent never opens the card while
+        # a child holds it
+        from dgnn.utils import enable_compile_cache
+        enable_compile_cache()
         names = [n for n in runners if (not only or n in only)]
         _run_child(names, runners)
         return

@@ -1,56 +1,23 @@
-"""Build and cache the RAW Reddit-scale R-MAT arrays (CSR/CSC/permute).
+"""Build and cache the raw Reddit-scale R-MAT arrays (CSR/CSC/permute).
 
-The raw index arrays are independent of the binned/dense graph format, so
-caching them separately means a format change (cache key bump) costs a
-~2-minute rebuild from this file instead of the full R-MAT generation +
-two lexsorts (~15-20 min on this 1-core host).  bench.py and
-scripts/rebuild_reddit_cache.py both consume it.
+bench.py and the training CLIs build this file on first use
+(graph/cache.rmat_graph); this script builds it ahead of time.
 
 Run: python scripts/build_reddit_raw.py  [out.npz]
 """
-import json
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np
+from dgnn.data.synthetic import CITATION_SHAPES
+from dgnn.graph.cache import build_rmat_raw
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-
-def build_raw(n: int, e: int, out_path: str, seed: int = 0) -> None:
-    from dgnn_tpu.data.synthetic import rmat_edges
-    from dgnn_tpu.graph import build
-
-    t0 = time.time()
-    src, dst = rmat_edges(n, e, seed=seed)
-    print(f"rmat edges {time.time()-t0:.0f}s", flush=True)
-    src, dst = build.remove_self_loops(src, dst)
-    src, dst = build.add_self_loops(src, dst, n)
-    row_ptr, col_ind = build.coo_to_csr(src, dst, n)
-    print(f"csr {time.time()-t0:.0f}s", flush=True)
-    del src, dst
-    col_ptr, row_ind, permute = build.csr_to_csc_permute(row_ptr, col_ind)
-    print(f"csc+permute {time.time()-t0:.0f}s", flush=True)
-    meta = dict(num_nodes=n, num_edges=int(col_ind.shape[0]), seed=seed)
-    tmp = out_path + ".tmp.npz"
-    np.savez(tmp, row_ptr=row_ptr.astype(np.int64),
-             col_ind=col_ind.astype(np.int32),
-             col_ptr=col_ptr.astype(np.int64),
-             row_ind=row_ind.astype(np.int32),
-             permute=permute.astype(np.int32),
-             meta_json=np.frombuffer(json.dumps(meta).encode(), np.uint8))
-    os.replace(tmp, out_path)
-    print(f"saved {out_path} ({time.time()-t0:.0f}s total)", flush=True)
-
-
 if __name__ == "__main__":
-    from dgnn_tpu.data.synthetic import CITATION_SHAPES
-
     n, e, _, _ = CITATION_SHAPES["reddit"]
     out = (sys.argv[1] if len(sys.argv) > 1 else
            os.path.join(REPO, ".bench_cache", f"rmat_raw_{n}_{e}.npz"))
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    build_raw(n, e, out)
+    build_rmat_raw(n, e, out)
+    print(f"saved {out}")

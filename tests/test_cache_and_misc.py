@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from dgnn_tpu.graph import cache as gcache
-from dgnn_tpu.graph.structure import build_graph
-from dgnn_tpu.ops.gat import gat_aggregate
+from dgnn.graph import cache as gcache
+from dgnn.graph.structure import build_graph
+from dgnn.ops.gat import gat_aggregate
 from tests.conftest import random_graph
 
 
@@ -29,27 +29,6 @@ def test_cache_roundtrip_plain(rng, tmp_path):
     assert g2.num_nodes == g.num_nodes and g2.num_edges == g.num_edges
     assert g2.fwd.widths == g.fwd.widths
     _graphs_equal(g, g2)
-
-
-def test_cache_roundtrip_dense_no_edge_tables(rng, tmp_path):
-    src, dst = random_graph(rng, 60, 6, power_law=True)
-    g = build_graph(src, dst, 60, widths=(4, 16), dense=(16, 24),
-                    edge_tables=False)
-    assert g.fwd.dense is not None and g.fwd.edge[0] is None
-    path = str(tmp_path / "gd.npz")
-    gcache.save_graph(path, g)
-    g2 = gcache.load_graph(path)
-    assert g2.fwd.dense is not None and g2.fwd.edge[0] is None
-    assert g2.fwd.dense.num_rows == g.fwd.dense.num_rows
-    _graphs_equal(g, g2)
-    # loaded graph must produce identical aggregation output
-    n, h, f = 60, 2, 4
-    ar = jnp.asarray(rng.normal(size=(n, h)), jnp.float32)
-    ac = jnp.asarray(rng.normal(size=(n, h)), jnp.float32)
-    feat = jnp.asarray(rng.normal(size=(n, h, f)), jnp.float32)
-    o1 = gat_aggregate(g, ar, ac, feat, dense_dtype="float32")
-    o2 = gat_aggregate(g2, ar, ac, feat, dense_dtype="float32")
-    np.testing.assert_allclose(o1, o2, rtol=0, atol=0)
 
 
 def test_slim_graph_under_jit(rng):
@@ -98,7 +77,7 @@ def test_knn_bisect_superset_of_exact(rng):
     """The bisection threshold admits a SUPERSET of the exact k nearest
     (count >= k always; equal for well-separated points) — the documented
     admission semantics of the DGCNN default path (ADVICE r1)."""
-    from dgnn_tpu.graph.knn import knn_mask_neg
+    from dgnn.graph.knn import knn_mask_neg
 
     x = jnp.asarray(rng.normal(size=(3, 32, 3)), jnp.float32)
     k = 5
@@ -110,7 +89,7 @@ def test_knn_bisect_superset_of_exact(rng):
 
 
 def test_knn_exact_matches_bruteforce(rng):
-    from dgnn_tpu.graph.knn import knn_mask_neg
+    from dgnn.graph.knn import knn_mask_neg
 
     x = rng.normal(size=(2, 20, 3)).astype(np.float32)
     k = 4
@@ -126,8 +105,8 @@ def test_knn_exact_matches_bruteforce(rng):
 def test_structure_task_labels_are_graph_derived(rng):
     """BFS-Voronoi labels from an existing CSR: all classes populated, edge
     homophily well above the random-label rate, masks disjoint."""
-    from dgnn_tpu.data.synthetic import structure_task_from_csr
-    from dgnn_tpu.graph.build import coo_to_csr
+    from dgnn.data.synthetic import structure_task_from_csr
+    from dgnn.graph.build import coo_to_csr
 
     n, c = 500, 7
     src = rng.integers(0, n, 3000)
@@ -151,8 +130,8 @@ def test_knn_bisect_drift_on_modelnet_clouds():
     the exact k-NN set always included.  (The semantic effect of a few
     extra candidates in a MAX aggregation is to occasionally select the
     (k+1)-th nearest — bounded by this drift.)"""
-    from dgnn_tpu.data.synthetic import synthetic_point_clouds
-    from dgnn_tpu.graph.knn import knn_mask_neg
+    from dgnn.data.synthetic import synthetic_point_clouds
+    from dgnn.graph.knn import knn_mask_neg
 
     x_np, _ = synthetic_point_clouds(2, num_points=1024, num_classes=5,
                                      seed=0)

@@ -25,7 +25,7 @@ os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
 import jax
 jax.config.update("jax_platforms", "cpu")
 
-from dgnn_tpu.parallel.distributed import graph_mesh, initialize_cluster
+from dgnn.parallel.distributed import graph_mesh, initialize_cluster
 
 initialize_cluster(coordinator_address=os.environ["DGNN_COORD"],
                    num_processes=2,

@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from dgnn_tpu.graph.knn import knn_graph
-from dgnn_tpu.ops import reference
-from dgnn_tpu.ops.edgeconv import (edge_conv_max,
-                                     edge_conv_max_dense)
+from dgnn.graph.knn import knn_graph
+from dgnn.ops import reference
+from dgnn.ops.edgeconv import (edge_conv_max,
+                               edge_conv_max_dense)
 
 
 def test_forward_matches_dense(rng):
@@ -63,8 +63,8 @@ def test_knn_includes_self(rng):
 
 def test_dense_masked_matches_gather_path(rng):
     """edge_conv_max_dense (per-cloud dense mask) vs the [N,k] gather path."""
-    from dgnn_tpu.graph.knn import knn_mask_neg
-    from dgnn_tpu.ops.edgeconv import edge_conv_max_dense
+    from dgnn.graph.knn import knn_mask_neg
+    from dgnn.ops.edgeconv import edge_conv_max_dense
 
     b, p, d, k, f = 2, 12, 3, 4, 5
     x = jnp.asarray(rng.normal(size=(b, p, d)), jnp.float32)
@@ -100,7 +100,7 @@ def test_dense_masked_matches_gather_path(rng):
 def test_dense_bwd_bf16_close_to_f32(rng):
     """The production bf16 indicator-multiply backward tracks the exact f32
     one to bf16 rounding (~0.4% relative)."""
-    from dgnn_tpu.graph.knn import knn_mask_neg
+    from dgnn.graph.knn import knn_mask_neg
 
     b, p, f = 2, 64, 96
     x = jnp.asarray(rng.normal(size=(b, p, 3)), jnp.float32)
@@ -122,7 +122,7 @@ def test_dense_bwd_bf16_close_to_f32(rng):
 def test_bisect_mask_superset_of_exact(rng):
     """Bisection membership (bf16 d2, interval slack) always ADMITS the true
     k nearest (may add rounding-tied extras, never drops one)."""
-    from dgnn_tpu.graph.knn import knn_mask_neg
+    from dgnn.graph.knn import knn_mask_neg
 
     b, p, k = 3, 32, 5
     x = jnp.asarray(rng.normal(size=(b, p, 3)), jnp.float32)

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dgnn_tpu.graph.structure import build_graph
-from dgnn_tpu.ops import reference
-from dgnn_tpu.ops.gat import gat_aggregate, _gat_forward
+from dgnn.graph.structure import build_graph
+from dgnn.ops import reference
+from dgnn.ops.gat import gat_aggregate, _gat_forward
 from tests.conftest import random_graph
 
 jax.config.update("jax_enable_x64", False)
@@ -32,12 +32,9 @@ def test_forward_matches_dense(rng, power_law):
 
 
 def test_forward_stats_match_dense(rng):
-    """The softmax stats (M, L) need not match the oracle's (max, sumexp)
-    pointwise — the DENSE HUB kernels emit M = a precomputed row BOUND
-    (pallas_dense._gat_fwd_kernel; the bin kernels compute the exact
-    per-segment max since round 4) — but the invariant quantity
-    M + log(L) = logsumexp(scores) must be exact, and the backward's
-    recomputed weights exp(s - M) / L are exact under any valid bound."""
+    """The softmax stats (M, L) feed the backward's recomputed weights
+    exp(s - M) / L, which are exact under any valid bound M; the invariant
+    quantity M + log(L) = logsumexp(scores) must match the oracle."""
     g, ar, ac, feat, adj = _setup(rng)
     _, M, L, _, _ = _gat_forward(g.fwd, ar, ac, feat, 0.2, 0.0, jnp.uint32(0),
                                  False)
@@ -129,7 +126,7 @@ def test_zero_in_degree_rows_are_zero(rng):
 
 def test_jit_and_chunking_consistency(rng):
     """Chunked scan path (tiny budget) must equal unchunked output."""
-    import dgnn_tpu.ops.common as common
+    import dgnn.ops.common as common
     g, ar, ac, feat, adj = _setup(rng, n=100, deg=8, widths=(4, 16))
     out_big = jax.jit(lambda a, b, c: gat_aggregate(g, a, b, c))(ar, ac, feat)
     orig = common.GATHER_BUDGET_BYTES
@@ -156,7 +153,7 @@ def test_chunked_bin_kernel_matches_dense(rng, monkeypatch):
     """Multi-chunk scan over the fused bin kernels (tiny gather budget) and
     ragged kernel grids (S not divisible by the block) must match the
     oracle — forward and gradients."""
-    from dgnn_tpu.ops import common
+    from dgnn.ops import common
 
     monkeypatch.setattr(common, "GATHER_BUDGET_BYTES", 64 * 1024)
     g, ar, ac, feat, adj = _setup(rng, n=90, deg=5, h=2, f=4,
@@ -176,3 +173,81 @@ def test_chunked_bin_kernel_matches_dense(rng, monkeypatch):
     gd = jax.grad(loss_dense, argnums=(0, 1, 2))(ar, ac, feat)
     for a, b in zip(gf, gd):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("widths", [(256,), (2, 4)])
+def test_power_law_wide_and_split_bins_match_dense(rng, widths):
+    """Hub-heavy graph through one wide bin (every row in one segment) and
+    through narrow bins that split every hub into many segments merged by
+    the combine tables: forward and gradients against the oracle."""
+    g, ar, ac, feat, adj = _setup(rng, n=120, deg=8, h=2, f=4,
+                                  power_law=True, widths=widths)
+    out = gat_aggregate(g, ar, ac, feat)
+    ref, _, _ = reference.gat_dense(adj, ar, ac, feat, 0.2)
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+
+    def loss_fused(ar, ac, feat):
+        return jnp.sum(jnp.sin(gat_aggregate(g, ar, ac, feat,
+                                             training=True)))
+
+    def loss_dense(ar, ac, feat):
+        return jnp.sum(jnp.sin(reference.gat_dense(adj, ar, ac, feat,
+                                                   0.2)[0]))
+
+    gf = jax.grad(loss_fused, argnums=(0, 1, 2))(ar, ac, feat)
+    gd = jax.grad(loss_dense, argnums=(0, 1, 2))(ar, ac, feat)
+    for a, b in zip(gf, gd):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("p", [0.3, 0.7])
+def test_dropout_split_bins_match_dense(rng, p):
+    """Attention dropout on split hub rows: the pair hash re-derives the
+    same mask in every segment (CSR forward) and in the transposed pass."""
+    g, ar, ac, feat, adj = _setup(rng, n=90, deg=6, h=2, f=3,
+                                  power_law=True, widths=(2, 8))
+    key = jax.random.PRNGKey(11)
+    seed = jax.random.bits(key, dtype=jnp.uint32)
+
+    def loss_fused(ar, ac, feat):
+        return jnp.sum(gat_aggregate(g, ar, ac, feat, attn_drop=p, key=key,
+                                     training=True) ** 2)
+
+    def loss_dense(ar, ac, feat):
+        out, _, _ = reference.gat_dense(adj, ar, ac, feat, 0.2,
+                                        attn_drop=p, seed=seed)
+        return jnp.sum(out ** 2)
+
+    out = gat_aggregate(g, ar, ac, feat, attn_drop=p, key=key,
+                        training=True)
+    ref, _, _ = reference.gat_dense(adj, ar, ac, feat, 0.2, attn_drop=p,
+                                    seed=seed)
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+    gf = jax.grad(loss_fused, argnums=(0, 1, 2))(ar, ac, feat)
+    gd = jax.grad(loss_dense, argnums=(0, 1, 2))(ar, ac, feat)
+    for a, b in zip(gf, gd):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("widths", [(256,), (2, 8)])
+def test_bf16_gather_close_to_dense(rng, widths):
+    """bf16 gathered rows with f32 accumulation, in wide and in split bins:
+    against the oracle on the same bf16-rounded features, the forward and
+    every gradient stay within bf16 rounding, because the attention logits
+    and softmax statistics ride the gathered rows as exact f32."""
+    g, ar, ac, feat, adj = _setup(rng, n=100, deg=6, h=2, f=8,
+                                  power_law=True, widths=widths)
+    feat_r = feat.astype(jnp.bfloat16).astype(jnp.float32)
+    out = gat_aggregate(g, ar, ac, feat, gather_dtype=jnp.bfloat16)
+    ref, _, _ = reference.gat_dense(adj, ar, ac, feat_r, 0.2)
+    assert out.dtype == jnp.float32
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
+    ct = jnp.asarray(rng.normal(size=feat.shape), jnp.float32)
+    _, vjp = jax.vjp(lambda a, b, c: gat_aggregate(
+        g, a, b, c, gather_dtype=jnp.bfloat16), ar, ac, feat)
+    _, vjp_r = jax.vjp(lambda a, b, c: reference.gat_dense(
+        adj, a, b, c.astype(jnp.bfloat16).astype(jnp.float32), 0.2)[0],
+        ar, ac, feat)
+    for a, b in zip(vjp(ct), vjp_r(ct)):
+        scale = float(jnp.max(jnp.abs(b)))
+        assert float(jnp.max(jnp.abs(a - b))) <= 1e-2 * scale

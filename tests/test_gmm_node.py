@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from dgnn_tpu.graph.structure import build_graph
-from dgnn_tpu.ops import reference
-from dgnn_tpu.ops.gmm import gmm_aggregate_node
+from dgnn.graph.structure import build_graph
+from dgnn.ops import reference
+from dgnn.ops.gmm import gmm_aggregate_node
 from tests.conftest import random_graph
 
 
@@ -28,9 +28,9 @@ def _oracle(g, feat, s_np, d_np, pw, pb, mu, isig, use_tanh=True):
     return reference.gmm_dense(eid, feat, p, mu, isig)
 
 
-def _setup(rng, n=40, deg=5, k=2, f=4, d=2, dense=None):
+def _setup(rng, n=40, deg=5, k=2, f=4, d=2):
     src, dst = random_graph(rng, n, deg, power_law=True)
-    g = build_graph(src, dst, n, widths=(4, 16), dense=dense)
+    g = build_graph(src, dst, n, widths=(4, 16))
     feat = jnp.asarray(rng.normal(size=(n, k, f)), jnp.float32)
     s_np = rng.normal(size=(n, 1)).astype(np.float32)
     d_np = rng.normal(size=(n, 1)).astype(np.float32)
@@ -56,30 +56,6 @@ def test_node_grads_match_oracle(rng):
     def loss_fused(feat, pw, pb, mu, isig):
         out = gmm_aggregate_node(g, feat, sj, dj, mu, isig, proj_weight=pw,
                                  proj_bias=pb)
-        return jnp.sum(jnp.sin(out))
-
-    def loss_ref(feat, pw, pb, mu, isig):
-        return jnp.sum(jnp.sin(_oracle(g, feat, s_np, d_np, pw, pb, mu,
-                                       isig)))
-
-    gf = jax.grad(loss_fused, argnums=(0, 1, 2, 3, 4))(feat, pw, pb, mu, isig)
-    gr = jax.grad(loss_ref, argnums=(0, 1, 2, 3, 4))(feat, pw, pb, mu, isig)
-    for name, a, b in zip(("feat", "pw", "pb", "mu", "isig"), gf, gr):
-        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4, err_msg=name)
-
-
-def test_node_dense_block_forward_and_grads(rng):
-    g, feat, s_np, d_np, mu, isig, pw, pb = _setup(rng, dense=(16, 24))
-    assert g.fwd.dense is not None
-    sj, dj = jnp.asarray(s_np), jnp.asarray(d_np)
-    out = gmm_aggregate_node(g, feat, sj, dj, mu, isig, proj_weight=pw,
-                             proj_bias=pb, dense_dtype="float32")
-    ref = _oracle(g, feat, s_np, d_np, pw, pb, mu, isig)
-    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)
-
-    def loss_fused(feat, pw, pb, mu, isig):
-        out = gmm_aggregate_node(g, feat, sj, dj, mu, isig, proj_weight=pw,
-                                 proj_bias=pb, dense_dtype="float32")
         return jnp.sum(jnp.sin(out))
 
     def loss_ref(feat, pw, pb, mu, isig):

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dgnn_tpu.graph.structure import build_graph
-from dgnn_tpu.ops import reference
-from dgnn_tpu.ops.gmm import gmm_aggregate
+from dgnn.graph.structure import build_graph
+from dgnn.ops import reference
+from dgnn.ops.gmm import gmm_aggregate
 from tests.conftest import random_graph
 
 
@@ -47,9 +47,7 @@ def test_grads_match_dense_autodiff(rng):
 
 
 def test_pallas_gmm_matches_dense(rng):
-    """GMM fwd+bwd with the Pallas kernels forced on (interpret mode)."""
-    import os
-
+    """GMM fwd+bwd at wide features (K=8, F=128) in a single bin."""
     g, feat, pseudo, mu, isig, eid = _setup(rng, n=48, deg=5, k=8, f=128,
                                             widths=(8,))
 
@@ -59,12 +57,8 @@ def test_pallas_gmm_matches_dense(rng):
     def loss_dense(feat, pseudo, mu, isig):
         return jnp.sum(reference.gmm_dense(eid, feat, pseudo, mu, isig) ** 2)
 
-    os.environ["DGNN_TPU_PALLAS"] = "1"
-    try:
-        out = gmm_aggregate(g, feat, pseudo, mu, isig)
-        gf = jax.grad(loss_fused, argnums=(0, 1, 2, 3))(feat, pseudo, mu, isig)
-    finally:
-        os.environ["DGNN_TPU_PALLAS"] = "0"
+    out = gmm_aggregate(g, feat, pseudo, mu, isig)
+    gf = jax.grad(loss_fused, argnums=(0, 1, 2, 3))(feat, pseudo, mu, isig)
     ref = reference.gmm_dense(eid, feat, pseudo, mu, isig)
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
     gd = jax.grad(loss_dense, argnums=(0, 1, 2, 3))(feat, pseudo, mu, isig)
@@ -89,7 +83,7 @@ def test_power_law_split_rows(rng):
 
 def test_binned_path_matches_dense(rng):
     """gmm_aggregate_binned (2-pass, projection inside) vs dense autodiff."""
-    from dgnn_tpu.ops.gmm import bin_pseudo, gmm_aggregate_binned
+    from dgnn.ops.gmm import bin_pseudo, gmm_aggregate_binned
 
     g, feat, praw, mu, isig, eid = _setup(rng, n=40, deg=5, k=2, f=3, d=2)
     pbins = bin_pseudo(g, praw)
@@ -122,7 +116,7 @@ def test_binned_path_matches_dense(rng):
 
 def test_binned_path_identity_proj(rng):
     """Binned path without projection == general flat-pseudo path."""
-    from dgnn_tpu.ops.gmm import bin_pseudo, gmm_aggregate_binned
+    from dgnn.ops.gmm import bin_pseudo, gmm_aggregate_binned
 
     g, feat, praw, mu, isig, eid = _setup(rng, n=50, deg=4, k=3, f=5, d=2,
                                           widths=(2, 8))

@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from dgnn_tpu.graph import binning, build
-from dgnn_tpu.graph.structure import build_graph
+from dgnn.graph import binning, build
+from dgnn.graph.structure import build_graph
 from tests.conftest import random_graph
 
 
@@ -119,7 +119,7 @@ def test_bwd_bins_carry_csr_edge_ids(rng):
 
 
 def test_auto_widths_minimizes_padding(rng):
-    from dgnn_tpu.graph.binning import auto_widths, bin_csr, DEFAULT_WIDTHS
+    from dgnn.graph.binning import auto_widths, bin_csr, DEFAULT_WIDTHS
     import numpy as np
 
     # low-degree graph: auto widths should waste fewer slots than defaults
@@ -136,7 +136,7 @@ def test_auto_widths_minimizes_padding(rng):
 
 
 def test_auto_widths_mega_rows(rng):
-    from dgnn_tpu.graph.binning import auto_widths
+    from dgnn.graph.binning import auto_widths
 
     deg = np.concatenate([np.full(100, 3), [5000, 20000]])
     w = auto_widths(deg)

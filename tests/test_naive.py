@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from dgnn_tpu.graph.structure import build_graph
-from dgnn_tpu.ops.gat import gat_aggregate
-from dgnn_tpu.ops.gmm import gmm_aggregate
-from dgnn_tpu.ops.naive import gat_naive, gmm_naive
+from dgnn.graph.structure import build_graph
+from dgnn.ops.gat import gat_aggregate
+from dgnn.ops.gmm import gmm_aggregate
+from dgnn.ops.naive import gat_naive, gmm_naive
 from tests.conftest import random_graph
 
 

@@ -25,7 +25,7 @@ def _numpy_csc(row_ptr, col_ind, n):
 
 @pytest.fixture(scope="module")
 def native():
-    from dgnn_tpu import native as nat
+    from dgnn import native as nat
 
     if not nat.available():
         pytest.skip("native library unavailable (no g++?)")
@@ -66,19 +66,17 @@ def test_native_rmat_shape_and_determinism(native):
     assert top > 0.05 * 5000, top
 
 
-def test_dense_mask_fill_matches_numpy(rng):
-    from dgnn_tpu import native
-    from dgnn_tpu.graph.hub import pack_mask_bits
-    from dgnn_tpu.ops.pallas_dense import DENSE_CT
-
-    if not native.available():
-        import pytest
-        pytest.skip("no native toolchain")
-    rpad, cpad = 16, 2 * DENSE_CT
-    e = 500
-    er = rng.integers(0, rpad, e)
-    ec = rng.integers(0, cpad, e)
-    got = native.dense_mask_fill(er, ec, rpad, cpad, DENSE_CT)
-    mask01 = np.zeros((rpad, cpad), bool)
-    mask01[er, ec] = True
-    np.testing.assert_array_equal(got, pack_mask_bits(mask01))
+def test_native_bin_fill_matches_numpy(rng, native):
+    """The native slot-table fill equals the numpy path of binning._build_bin
+    (padded slots zero, valid slots the CSR neighbours and edge ids)."""
+    s, width = 37, 8
+    counts = rng.integers(0, width + 1, s).astype(np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+    col_ind = rng.integers(0, 1000, int(counts.sum())).astype(np.int32)
+    edge_ids = rng.permutation(len(col_ind)).astype(np.int64)
+    nbr, edge = native.bin_fill(starts, counts, width, col_ind, edge_ids)
+    lane = np.arange(width)[None, :]
+    mask = lane < counts[:, None]
+    offs = np.where(mask, starts[:, None] + lane, 0)
+    np.testing.assert_array_equal(nbr, np.where(mask, col_ind[offs], 0))
+    np.testing.assert_array_equal(edge, np.where(mask, edge_ids[offs], 0))

@@ -8,9 +8,9 @@ import pytest
 from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
-from dgnn_tpu.graph.structure import build_graph
-from dgnn_tpu.models import GAT
-from dgnn_tpu.parallel import (ShardedGAT, local_view, partition_graph)
+from dgnn.graph.structure import build_graph
+from dgnn.models import GAT
+from dgnn.parallel import (ShardedGAT, local_view, partition_graph)
 from tests.conftest import random_graph
 
 
@@ -38,16 +38,14 @@ def test_sharded_forward_matches_single(rng, num_shards):
     model = ShardedGAT(num_layers=1, n_hidden=f, n_classes=3, heads=(h, 1))
     ref_model = GAT(num_layers=1, n_hidden=f, n_classes=3, heads=(h, 1))
 
-    params = ref_model.init(jax.random.PRNGKey(0), g, jnp.asarray(feat))
+    params = ref_model.init(jax.random.PRNGKey(0), 12)
 
     def per_shard(params, shards, x):
         return model.apply(params, local_view(shards), x)
 
-    # check_vma=False: pallas interpret mode rejects vma checking (see
-    # __graft_entry__.py — the bin kernels run in every sharded pass now)
     fwd = shard_map(per_shard, mesh=mesh,
                     in_specs=(P(), P("graph"), P("graph")),
-                    out_specs=P("graph"), check_vma=False)
+                    out_specs=P("graph"))
     out = jax.jit(fwd)(params, shards, jnp.asarray(feat_pad))
     ref = ref_model.apply(params, g, jnp.asarray(feat))
     np.testing.assert_allclose(np.asarray(out)[:n], np.asarray(ref),
@@ -73,14 +71,14 @@ def test_sharded_grads_match_single(rng):
 
     model = ShardedGAT(num_layers=1, n_hidden=f, n_classes=3, heads=(h, 1))
     ref_model = GAT(num_layers=1, n_hidden=f, n_classes=3, heads=(h, 1))
-    params = ref_model.init(jax.random.PRNGKey(1), g, jnp.asarray(feat))
+    params = ref_model.init(jax.random.PRNGKey(1), 10)
 
     def per_shard_logits(params, shards, x):
         return model.apply(params, local_view(shards), x)
 
     fwd = shard_map(per_shard_logits, mesh=mesh,
                     in_specs=(P(), P("graph"), P("graph")),
-                    out_specs=P("graph"), check_vma=False)
+                    out_specs=P("graph"))
 
     def loss_sharded(params):
         logits = fwd(params, shards, jnp.asarray(feat_pad))
@@ -104,83 +102,36 @@ def test_sharded_grads_match_single(rng):
                                    err_msg=jax.tree_util.keystr(k))
 
 
-def test_sharded_dense_hub_matches_single(rng):
-    """Shards carrying per-shard dense hub blocks + combine tables (the fast
-    sharded hot path) must match the single-chip op: forward and grads."""
-    n, h, f, num_shards = 48, 2, 4, 4
-    src, dst = random_graph(rng, n, 6, power_law=True)
-    mesh = _mesh(num_shards)
-    shards = partition_graph(src, dst, n, num_shards, widths=(4, 16),
-                             dense=(8, 24))
-    assert shards.fwd_dense is not None and shards.bwd_dense is not None
-    g = build_graph(src, dst, n, widths=(4, 16))
-    n_pad = shards.padded_nodes
-
-    feat = rng.normal(size=(n, 10)).astype(np.float32)
-    feat_pad = np.zeros((n_pad, 10), np.float32)
-    feat_pad[:n] = feat
-    mask_pad = np.zeros(n_pad, np.float32)
-    mask_pad[:n] = 1.0
-
-    model = ShardedGAT(num_layers=1, n_hidden=f, n_classes=3, heads=(h, 1),
-                       dense_dtype="float32")
-    ref_model = GAT(num_layers=1, n_hidden=f, n_classes=3, heads=(h, 1))
-    params = ref_model.init(jax.random.PRNGKey(0), g, jnp.asarray(feat))
-
-    # check_vma=False: pallas_call out_shapes carry no varying-mesh-axes
-    # info, so shard_map's vma checker cannot see through the dense kernels
-    fwd = shard_map(lambda p, s, x: model.apply(p, local_view(s), x),
-                    mesh=mesh, in_specs=(P(), P("graph"), P("graph")),
-                    out_specs=P("graph"), check_vma=False)
-    out = jax.jit(fwd)(params, shards, jnp.asarray(feat_pad))
-    ref = ref_model.apply(params, g, jnp.asarray(feat))
-    np.testing.assert_allclose(np.asarray(out)[:n], np.asarray(ref),
-                               rtol=2e-4, atol=2e-5)
-
-    def loss_sharded(params):
-        o = fwd(params, shards, jnp.asarray(feat_pad))
-        return jnp.sum(jnp.sin(o) * jnp.asarray(mask_pad)[:, None])
-
-    def loss_single(params):
-        return jnp.sum(jnp.sin(ref_model.apply(params, g, jnp.asarray(feat))))
-
-    gs = jax.jit(jax.grad(loss_sharded))(params)
-    gr = jax.grad(loss_single)(params)
-    for a, b in zip(jax.tree.leaves(gs), jax.tree.leaves(gr)):
-        np.testing.assert_allclose(a, b, rtol=5e-4, atol=5e-5)
-
-
-@pytest.mark.parametrize("dense", [None, (8, 24)])
-def test_sharded_attn_dropout_matches_single(rng, dense):
+@pytest.mark.parametrize("widths", [None, (4, 16)])
+def test_sharded_attn_dropout_matches_single(rng, widths):
     """pair_keep keys on GLOBAL node ids in the sharded path (ext_gids), so
-    the attention-dropout mask — binned bins, halo bins and dense hub tiles
-    alike — is bit-identical to single-chip for the same rng."""
+    the attention-dropout mask — local bins and halo bins alike — is
+    bit-identical to single-chip for the same rng."""
     n, h, f, num_shards, p_drop = 48, 2, 4, 4, 0.4
     src, dst = random_graph(rng, n, 6, power_law=True)
     mesh = _mesh(num_shards)
-    shards = partition_graph(src, dst, n, num_shards, widths=(4, 16),
-                             dense=dense)
-    g = build_graph(src, dst, n, widths=(4, 16))
+    shards = partition_graph(src, dst, n, num_shards, widths=widths)
+    g = build_graph(src, dst, n, widths=widths)
     n_pad = shards.padded_nodes
     feat = rng.normal(size=(n, 10)).astype(np.float32)
     feat_pad = np.zeros((n_pad, 10), np.float32)
     feat_pad[:n] = feat
 
     model = ShardedGAT(num_layers=1, n_hidden=f, n_classes=3, heads=(h, 1),
-                       attn_drop=p_drop, dense_dtype="float32")
+                       attn_drop=p_drop)
     ref_model = GAT(num_layers=1, n_hidden=f, n_classes=3, heads=(h, 1),
                     attn_drop=p_drop)
-    params = ref_model.init(jax.random.PRNGKey(0), g, jnp.asarray(feat))
-    rngs = {"dropout": jax.random.PRNGKey(7)}
+    params = ref_model.init(jax.random.PRNGKey(0), 10)
+    key = jax.random.PRNGKey(7)
 
     fwd = shard_map(
         lambda p, s, x: model.apply(p, local_view(s), x, training=True,
-                                    rngs=rngs),
+                                    key=key),
         mesh=mesh, in_specs=(P(), P("graph"), P("graph")),
-        out_specs=P("graph"), check_vma=False)
+        out_specs=P("graph"))
     out = jax.jit(fwd)(params, shards, jnp.asarray(feat_pad))
     ref = ref_model.apply(params, g, jnp.asarray(feat), training=True,
-                          rngs=rngs)
+                          key=key)
     np.testing.assert_allclose(np.asarray(out)[:n], np.asarray(ref),
                                rtol=2e-4, atol=2e-5)
 
@@ -188,9 +139,9 @@ def test_sharded_attn_dropout_matches_single(rng, dense):
 def test_sharded_monet_matches_single(rng):
     """ShardedMoNet (halo all_to_all + resharded pseudo tables) vs the
     single-device binned MoNet: forward and gradients."""
-    from dgnn_tpu.models import MoNet
-    from dgnn_tpu.ops.gmm import bin_pseudo
-    from dgnn_tpu.parallel import ShardedMoNet, shard_edge_data
+    from dgnn.models import MoNet
+    from dgnn.ops.gmm import bin_pseudo
+    from dgnn.parallel import ShardedMoNet, shard_edge_data
 
     n, k, dim, num_shards = 40, 2, 3, 4
     src, dst = random_graph(rng, n, 4)
@@ -212,7 +163,7 @@ def test_sharded_monet_matches_single(rng):
                          n_kernels=k, dropout=0.0)
     ref_model = MoNet(n_hidden=4, out_feats=3, n_layers=1, dim=dim,
                       n_kernels=k, dropout=0.0)
-    params = ref_model.init(jax.random.PRNGKey(2), g, jnp.asarray(feat), pbins)
+    params = ref_model.init(jax.random.PRNGKey(2), 10, pbins)
 
     def per_shard(params, shards, pt, x):
         return model.apply(params, local_view(shards), x,
@@ -242,18 +193,16 @@ def test_sharded_monet_matches_single(rng):
 
 def test_sharded_monet_node_pseudo_matches_single(rng):
     """Node-pseudo sharded MoNet (source scalars ride the halo payload;
-    per-shard dense hub + combine tables) vs the single-device
-    gmm_aggregate_node path: forward and gradients."""
-    from dgnn_tpu.models import MoNet
-    from dgnn_tpu.ops.gmm import NodePseudo
-    from dgnn_tpu.parallel import ShardedMoNet
+    per-shard combine tables) vs the single-device gmm_aggregate_node path:
+    forward and gradients."""
+    from dgnn.models import MoNet
+    from dgnn.ops.gmm import NodePseudo
+    from dgnn.parallel import ShardedMoNet
 
     n, k, dim, num_shards = 48, 2, 2, 4
     src, dst = random_graph(rng, n, 6, power_law=True)
     mesh = _mesh(num_shards)
-    shards = partition_graph(src, dst, n, num_shards, widths=(4, 16),
-                             dense=(8, 24))
-    assert shards.fwd_dense is not None and shards.bwd_dense is not None
+    shards = partition_graph(src, dst, n, num_shards, widths=(4, 16))
     g = build_graph(src, dst, n, widths=(4, 16))
     n_pad = shards.padded_nodes
 
@@ -270,23 +219,20 @@ def test_sharded_monet_node_pseudo_matches_single(rng):
     mask_pad[:n] = 1.0
 
     model = ShardedMoNet(n_hidden=4, out_feats=3, n_layers=1, dim=dim,
-                         n_kernels=k, dropout=0.0, dense_dtype="float32")
+                         n_kernels=k, dropout=0.0)
     ref_model = MoNet(n_hidden=4, out_feats=3, n_layers=1, dim=dim,
                       n_kernels=k, dropout=0.0)
     np_single = NodePseudo(src=jnp.asarray(psrc), dst=jnp.asarray(pdst))
-    params = ref_model.init(jax.random.PRNGKey(2), g, jnp.asarray(feat),
-                            np_single)
+    params = ref_model.init(jax.random.PRNGKey(2), 10, np_single)
 
     def per_shard(params, shards, ps, pd, x):
         return model.apply(params, local_view(shards), x,
                            NodePseudo(src=ps, dst=pd))
 
-    # check_vma=False: interpret-mode pallas scalar-prefetch index maps
-    # reject vma checking (see __graft_entry__.py)
     fwd = shard_map(per_shard, mesh=mesh,
                     in_specs=(P(), P("graph"), P("graph"), P("graph"),
                               P("graph")),
-                    out_specs=P("graph"), check_vma=False)
+                    out_specs=P("graph"))
     out = jax.jit(fwd)(params, shards, jnp.asarray(psrc_pad),
                        jnp.asarray(pdst_pad), jnp.asarray(feat_pad))
     ref = ref_model.apply(params, g, jnp.asarray(feat), np_single)
@@ -318,18 +264,18 @@ def test_dgcnn_data_parallel_matches_single(rng):
     reproduce single-device results (per-cloud compute is independent;
     BatchNorm in eval mode)."""
     from jax.sharding import NamedSharding
-    from dgnn_tpu.models import DGCNN
+    from dgnn.models import DGCNN
 
     mesh = _mesh(4)
     b, p = 8, 16
     x = jnp.asarray(rng.normal(size=(b, p, 3)), jnp.float32)
     model = DGCNN(k=4, feature_dims=(8, 8), emb_dims=(16, 16),
                   output_classes=5, dropout=0.0)
-    variables = model.init(jax.random.PRNGKey(0), x)
+    params, state = model.init(jax.random.PRNGKey(0))
 
-    ref = model.apply(variables, x)
+    ref, _ = model.apply(params, state, x)
 
     xs = jax.device_put(x, NamedSharding(mesh, P("graph")))
-    out = jax.jit(lambda v, x: model.apply(v, x))(variables, xs)
+    out, _ = jax.jit(lambda p, s, x: model.apply(p, s, x))(params, state, xs)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=2e-5,
                                atol=2e-5)

@@ -4,9 +4,10 @@ dense oracles, including gradients."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from dgnn_tpu.graph.structure import build_graph
-from dgnn_tpu.ops import edge_softmax, edge_transpose, reference, sddmm, spmm
+from dgnn.graph.structure import build_graph
+from dgnn.ops import edge_softmax, edge_transpose, reference, sddmm, spmm
 from tests.conftest import random_graph
 
 
@@ -82,3 +83,21 @@ def test_edge_transpose_roundtrip(rng):
     # CSC slot j holds CSR edge permute[j]
     np.testing.assert_allclose(np.asarray(t),
                                np.asarray(data)[np.asarray(g.permute)])
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_pack_rows_keeps_scalars_exact(rng, dtype):
+    """Gather tables carry features in the gather dtype and float32 scalar
+    columns bit-exactly, whatever the table dtype."""
+    from dgnn.ops.common import pack_rows, unpack_scalars
+
+    feat = jnp.asarray(rng.normal(size=(7, 3, 4)), jnp.float32).astype(dtype)
+    a = jnp.asarray(rng.normal(size=(7, 3)) * 1e3, jnp.float32)
+    b = jnp.asarray(rng.normal(size=(7, 1)) * 1e-3, jnp.float32)
+    z = pack_rows(feat, a, b)
+    assert z.dtype == dtype
+    idx = jnp.asarray([[6, 0], [2, 2]])
+    g = z[idx]  # gathered [2, 2, C]
+    sc = unpack_scalars(g, 12)
+    np.testing.assert_array_equal(sc, jnp.concatenate([a, b], 1)[idx])
+    np.testing.assert_array_equal(g[..., :12], feat.reshape(7, 12)[idx])
